@@ -1,7 +1,7 @@
 """Process a batch of clips data-parallel over the device mesh.
 
 parallel.batch.map_sharded shards equal-shaped clips across
-jax.devices() with one pjit program; on a TPU pod slice each device
+jax.devices() with one pjit program; on several GPUs each device
 stretches its share. Runs on any device count, including a virtual CPU
 mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8).
 

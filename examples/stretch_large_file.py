@@ -2,8 +2,8 @@
 
 pv_stretch_pipeline fuses STFT -> remap -> iSTFT per output chunk inside
 one lax.scan, so the PV tensors (~2.5 GB per stereo minute at headline
-settings) are never materialized. The same call is the driver benchmark
-(bench.py) measured at ~700x realtime on one v5e chip.
+settings) are never materialized. The same call is the headline
+benchmark (bench.py).
 
 Run: python examples/stretch_large_file.py in.wav out.wav [factor]
 (with no arguments, synthesizes a demo input first)

@@ -1,8 +1,9 @@
-"""flan_tpu: a TPU-native audio processing framework.
+"""flan_tpu: an audio processing framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
+A ground-up JAX/XLA re-design with the capabilities of the reference
 Flan library (phase-vocoder-centric offline audio processing). The compute
-path is batched tensor programs on TPU; see SURVEY.md for the layer map.
+path is batched tensor programs on the accelerator (an NVIDIA GPU); see
+SURVEY.md for the layer map.
 """
 from flan_tpu.core.audio_buffer import AudioBuffer, AudioFormat, SndfileStrings
 from flan_tpu.core.pv_buffer import PVBuffer, PVFormat

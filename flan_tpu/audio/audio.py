@@ -1,6 +1,6 @@
 """Audio: time-domain algorithm surface.
 
-TPU-native re-design of the reference Audio class
+JAX re-design of the reference Audio class
 (reference: src/flan/Audio/Audio.h:25-1150). Audio is a stateless wrapper of
 AudioBuffer; every method is pure and returns a new Audio (the reference's
 const-method convention). Algorithms are batched JAX ops over the
@@ -257,7 +257,7 @@ class Audio(AudioBuffer):
         The reference ships this algorithm written but commented out
         (Conversions/AudioSQPV.cpp:64-121, "Sliding With A Constant-Q",
         DAFx-08); here it is activated — see flan_tpu/sqpv/transform.py
-        for the TPU-native modulated-prefix-sum formulation."""
+        for the modulated-prefix-sum formulation."""
         from flan_tpu.sqpv import SQPV
         from flan_tpu.sqpv.transform import sqpv_forward
         if self.is_null():
@@ -447,7 +447,7 @@ class Audio(AudioBuffer):
 
     def play(self) -> None:
         """The reference's play() is Windows-only (AudioBuffer.h:220-222);
-        here it is unsupported on the TPU host."""
+        here it is unsupported."""
         raise NotImplementedError(
             "Audio.play is not available (the reference supports it only "
             "on win32); save_to_file and play externally")

@@ -1,7 +1,7 @@
 """Audio filter family: VA-design TPT filters, Butterworth cascades,
 shelves, multinotch phasers, combs, Hilbert network, frequency shifting.
 
-TPU-native re-design of the reference's filter translation unit
+JAX re-design of the reference's filter translation unit
 (reference: src/flan/Audio/AudioFilter.cpp, after "VA Filter Design" 2nd
 ed.). Every per-sample loop becomes a parallel scan (flan_tpu.ops.scan /
 filter_cores); cascades run stage-sequentially with each stage parallel.
@@ -26,8 +26,8 @@ from flan_tpu.core.types import decibel_to_amplitude
 
 # Constant-coefficient fast path: at or above this length, a filter whose
 # parameters are all constants is applied as an FFT convolution of its
-# truncated impulse response instead of a state scan (docs/STATUS.md
-# design (a); VERDICT.md round 1 item 2). Below it the scan is cheap anyway.
+# truncated impulse response instead of a state scan. Below it the scan
+# is cheap anyway.
 _FIR_MIN_FRAMES = 16384
 
 
@@ -236,8 +236,7 @@ def _butterworth_2pole(self, order, cutoff, damping, sel: int,
 
     alpha = jnp.arccos(jnp.clip(R, -1.0, 1.0)) / order
     # pole splitter: R>1 -> real scaling, else complex rotation.
-    # Expanded to real/imag components: large 1-D complex64 arithmetic is
-    # unimplemented on this TPU backend.
+    # Expanded to real/imag components (float32 planes throughout).
     scaler_real = jnp.power(R + jnp.sqrt(jnp.maximum(R * R - 1.0, 0.0)),
                             1.0 / order)
     over = R > 1.0

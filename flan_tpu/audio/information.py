@@ -1,6 +1,6 @@
 """Audio information: pitch tracking, envelopes.
 
-TPU-native re-design of the reference information family
+JAX re-design of the reference information family
 (reference: src/flan/Audio/AudioInformation.cpp). The YIN-style wavelength
 search runs batched over all hops; the octave-flicker continuity pass stays
 on host (tiny control data). Attached to Audio in flan_tpu.audio.__init__.

@@ -1,6 +1,6 @@
 """Audio spatial methods: pan, widen, psychoacoustic stereo spatialization.
 
-TPU-native re-design of the reference spatial family
+JAX re-design of the reference spatial family
 (reference: src/flan/Audio/AudioSpatial.cpp). The reference's blockwise
 WDL-resampler ITD/doppler path becomes an inverse-mapped fractional-delay
 gather: emission times are monotonic when the source is speed-limited below

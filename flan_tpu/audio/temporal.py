@@ -1,6 +1,6 @@
 """Audio temporal methods: boundaries, cuts, silence, splits, repitch.
 
-TPU-native re-design of the reference's temporal family
+JAX re-design of the reference's temporal family
 (reference: src/flan/Audio/AudioTemporal.cpp). Attached to Audio as methods
 in flan_tpu.audio.__init__.
 """

@@ -1,6 +1,6 @@
 """Audio volume/dynamics: waveshape, compressor, ADSR, moisture.
 
-TPU-native re-design of the reference's volume family
+JAX re-design of the reference's volume family
 (reference: src/flan/Audio/AudioVolume.cpp). The compressor's sequential
 peak detector becomes two associative scans (flan_tpu.ops.scan). Attached to
 Audio in flan_tpu.audio.__init__.

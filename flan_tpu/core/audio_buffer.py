@@ -1,6 +1,6 @@
 """AudioBuffer: the time-domain container.
 
-TPU-native re-design of the reference AudioBuffer
+JAX re-design of the reference AudioBuffer
 (reference: src/flan/Audio/AudioBuffer.h:20-228). The reference stores a
 channel-major std::vector<float>; here the buffer is a [channels, frames]
 float32 JAX array resident in HBM, registered as a pytree so whole effect

@@ -1,10 +1,10 @@
 """PVBuffer: phase-vocoder (time x frequency) container.
 
-TPU-native re-design of the reference PVBuffer
+JAX re-design of the reference PVBuffer
 (reference: src/flan/PV/PVBuffer.h:27-288). The reference stores interleaved
-MF{mag, freq} structs in channel->frame->bin order (AoS). On TPU the natural
-layout is SoA: two [channels, frames, bins] float32 arrays, which vectorizes
-on the 8x128 VPU lanes and lets magnitude-only ops touch half the bytes.
+MF{mag, freq} structs in channel->frame->bin order (AoS). On the device the
+natural layout is SoA: two [channels, frames, bins] float32 arrays, which
+vectorizes over bins and lets magnitude-only ops touch half the bytes.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Semantic types and constants for flan_tpu.
 
-TPU-native re-design of the reference's semantic alias layer
+JAX re-design of the reference's semantic alias layer
 (reference: src/flan/defines.h:10-62). The reference uses C++ typedefs; here
 they are documentation-level aliases plus the handful of numeric conventions
 (dB <-> amplitude, pi constants) that the rest of the framework shares.

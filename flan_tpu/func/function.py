@@ -1,6 +1,6 @@
 """Function layer: constant-or-callable algorithm parameters.
 
-TPU-native re-design of the reference's Function<I, O> system
+JAX re-design of the reference's Function<I, O> system
 (reference: src/flan/Function.h:35-300, FunctionSample.h:18-199). The
 reference stores a std::variant<constant, std::function> plus an execution
 policy and rasterizes onto frame grids with parallel STL. Here a Function
@@ -76,8 +76,7 @@ class Function:
     def sample_device(self, count: int, period: float):
         """Rasterize onto (0..count-1) * period as a DEVICE [count] f32
         array (constants short-circuit to jnp.full - no host staging:
-        through the remote transport every host array is its own
-        round trip, CLAUDE.md). The shared helper for per-frame control
+        every host array is its own host->device transfer). The shared helper for per-frame control
         sampling in synthesis/temporal methods."""
         if self._const is not None:
             return jnp.full((count,), float(self._const), jnp.float32)

@@ -1,6 +1,6 @@
 """FunctionSample: constant-optimized sampled-function containers.
 
-TPU-native port of the reference FunctionSample / FunctionSample2d
+JAX port of the reference FunctionSample / FunctionSample2d
 (reference: src/flan/FunctionSample.h:18-199). A sampled Function is either
 a scalar (constant short-circuit, O(1) storage) or a device array; the
 container provides the reference's transform/accumulate/scan/maximum

@@ -1,6 +1,6 @@
 """Interpolators: [0,1] -> [0,1] shaping curves.
 
-TPU-native port surface of the reference Interpolator set
+JAX port surface of the reference Interpolator set
 (reference: src/flan/Utility/Interpolator.h, Interpolator.cpp). Each is a
 vectorized JAX-traceable callable usable inside jitted kernels.
 """

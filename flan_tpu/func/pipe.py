@@ -1,6 +1,6 @@
 """Pipe: composable effect chains.
 
-TPU-native port of the reference Pipe
+JAX port of the reference Pipe
 (reference: src/flan/Pipe.h:14-44). The C++ version chains callables with
 operator>> to exploit rvalue inputs; the Python version composes pure
 functions - JAX buffers are immutable so there is nothing to move, and a

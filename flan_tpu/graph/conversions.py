@@ -1,6 +1,6 @@
 """Audio -> Graph and PV -> Graph conversions.
 
-TPU-native re-design of the reference graph conversions
+JAX re-design of the reference graph conversions
 (reference: src/flan/Conversions/AudioGraph.cpp, PVGraph.cpp). Spectral
 tensors (FFT magnitudes, PV value planes) are computed on device; the pixel
 rendering is the host-side Graph.

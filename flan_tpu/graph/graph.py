@@ -1,6 +1,6 @@
 """Graph: multi-plane plotting for waveforms, spectrograms, functions.
 
-TPU-native re-design of the reference Graph
+JAX re-design of the reference Graph
 (reference: src/flan/Graph.h:21-283, Graph.cpp). The reference subclasses a
 BMP image and paints per-pixel in parallel-STL loops; here rendering is
 vectorized numpy over a [H, W, 3] float image (spectrogram/waveform tensors

@@ -2,7 +2,7 @@
 
 The reference reads and writes every libsndfile format
 (reference: src/flan/Audio/AudioBuffer.cpp:86-117); SURVEY.md blesses a
-host-side codec boundary for the TPU build. This covers the AIFF family:
+host-side codec boundary of the library. This covers the AIFF family:
 big-endian IFF containers with a COMM chunk (channel count, frame count,
 bit depth, 80-bit extended sample rate) and an SSND chunk of interleaved
 PCM. AIFF-C adds a compression tag: 'NONE' (big-endian PCM), 'sowt'

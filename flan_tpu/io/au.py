@@ -2,7 +2,7 @@
 
 The reference reads and writes every libsndfile format
 (reference: src/flan/Audio/AudioBuffer.cpp:86-117); SURVEY.md blesses a
-host-side codec boundary for the TPU build. The .au container is the
+host-side codec boundary of the library. The .au container is the
 simplest of the family: one big-endian 24+ byte header
 (magic ".snd", data offset, data size, encoding id, sample rate,
 channel count) followed by interleaved big-endian frames.

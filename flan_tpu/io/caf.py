@@ -2,7 +2,7 @@
 
 The reference reads and writes every libsndfile format
 (reference: src/flan/Audio/AudioBuffer.cpp:86-117); SURVEY.md blesses a
-host-side codec boundary for the TPU build. CAF is a 64-bit chunked
+host-side codec boundary of the library. CAF is a 64-bit chunked
 container: a "caff" file header, then chunks of (big-endian 4cc,
 int64 size). The 'desc' chunk is an AudioStreamBasicDescription
 (float64 sample rate, 4cc format id, format flags, packet/frame/channel

@@ -2,7 +2,7 @@
 
 The reference reads and writes every libsndfile format
 (reference: src/flan/Audio/AudioBuffer.cpp:86-117); SURVEY.md blesses a
-host-side codec boundary for the TPU build. Wave64 is RIFF with 64-bit
+host-side codec boundary of the library. Wave64 is RIFF with 64-bit
 plumbing: every chunk id is a 16-byte GUID whose first four bytes are
 the classic fourcc, sizes are little-endian int64 that INCLUDE the
 24-byte chunk header, and chunks are 8-byte aligned. The 'fmt ' body is

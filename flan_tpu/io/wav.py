@@ -1,6 +1,6 @@
 """WAV codec: host-side RIFF/WAVE encode/decode with metadata.
 
-TPU-native replacement for the reference's libsndfile dependency
+JAX replacement for the reference's libsndfile dependency
 (reference: src/flan/Audio/AudioBuffer.cpp:70-190). Decode happens on host
 into a numpy array that is then transferred once to HBM; the compute path
 never touches the codec. Supports PCM 8/16/24/32-bit and IEEE float32/64,

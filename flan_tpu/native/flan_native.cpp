@@ -1,6 +1,6 @@
 // flan_tpu native runtime: host-side codec hot loops.
 //
-// TPU-native replacement for the reference's native I/O dependencies
+// JAX replacement for the reference's native I/O dependencies
 // (libsndfile decode/encode, reference AudioBuffer.cpp:70-190; the
 // vendored bitmap_image BMP writer; the 24-bit .flan quantizer,
 // PVBuffer.cpp:99-275). The device compute path is JAX/XLA; these are the

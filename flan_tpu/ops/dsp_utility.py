@@ -1,6 +1,6 @@
 """DSP utility: parabolic interpolation, peak/valley finding, YIN pitch.
 
-TPU-native re-design of the reference utilities
+JAX re-design of the reference utilities
 (reference: src/flan/DSPUtility.cpp, AudioInformation.cpp:18-75). The
 reference walks samples sequentially per window; here the YIN difference
 function runs as batched FFT correlation over ALL analysis hops at once,

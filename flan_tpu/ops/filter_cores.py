@@ -1,6 +1,6 @@
 """TPT (topology-preserving transform) filter cores as parallel scans.
 
-TPU-native re-design of the reference's per-sample VA filter loops
+JAX re-design of the reference's per-sample VA filter loops
 (reference: src/flan/Audio/AudioFilter.cpp:50-238, after "VA Filter Design"
 2nd ed.). The reference runs strictly sequential sample loops; here each
 filter's state recurrence is linear time-varying, so it runs as an

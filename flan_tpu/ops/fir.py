@@ -1,7 +1,7 @@
 """FIR application via block FFT convolution, and IIR->FIR truncation.
 
-The constant-coefficient fast path for the filter family (docs/STATUS.md
-round-1 design (a); reference behavior: src/flan/Audio/AudioFilter.cpp
+The constant-coefficient fast path for the filter family (reference
+behavior: src/flan/Audio/AudioFilter.cpp
 per-sample loops). A stable LTI filter's impulse response decays like r^n
 (r = largest pole radius), so truncating it at K taps where |h[K:]| is
 below the float32 noise floor turns the sequential recurrence into a
@@ -10,11 +10,10 @@ memory-bound FFT convolution:
     signal -> non-overlapping blocks of L -> rfft(block) * rfft(h)
            -> irfft -> overlap-add the k-1 tail into the next block
 
-All FFTs run through the MXU matmul form (flan_tpu.ops.mxu_fft). K is
-found adaptively by running the real filter (whatever scan implements it)
-on a unit impulse and doubling until the tail is quiet - no per-filter
-analytic pole bookkeeping, and the FIR is exact truncation of the actual
-implementation, not a re-derivation.
+K is found adaptively by running the real filter (whatever scan
+implements it) on a unit impulse and doubling until the tail is quiet -
+no per-filter analytic pole bookkeeping, and the FIR is exact truncation
+of the actual implementation, not a re-derivation.
 """
 from __future__ import annotations
 
@@ -25,8 +24,6 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from flan_tpu.ops.mxu_fft import irfft_mxu, rfft_mxu
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -47,11 +44,10 @@ def _fir_blocks(x: jnp.ndarray, h: jnp.ndarray, fft_size: int):
     xp = jnp.pad(x, [(0, 0), (0, nb * L - n)]).reshape(c, nb, L)
     xp = jnp.pad(xp, [(0, 0), (0, 0), (0, fft_size - L)])
 
-    hr, hi = rfft_mxu(h, fft_size)                 # [B]
-    xr, xi = rfft_mxu(xp, fft_size)                # [C, nb, B]
-    yr = xr * hr[None, None, :] - xi * hi[None, None, :]
-    yi = xr * hi[None, None, :] + xi * hr[None, None, :]
-    full = irfft_mxu(yr, yi, fft_size)             # [C, nb, fft]
+    hs = jnp.fft.rfft(h, n=fft_size)               # [B]
+    xs = jnp.fft.rfft(xp, axis=-1)                 # [C, nb, B]
+    full = jnp.fft.irfft(xs * hs[None, None, :], n=fft_size,
+                         axis=-1)                  # [C, nb, fft]
     heads = full[..., :L]
     tails = full[..., L:L + k - 1]                 # [C, nb, k-1]
     tails_prev = jnp.concatenate(
@@ -64,8 +60,9 @@ def _fir_blocks(x: jnp.ndarray, h: jnp.ndarray, fft_size: int):
 def fir_apply(x: jnp.ndarray, h: jnp.ndarray) -> jnp.ndarray:
     """Causal FIR: y[i] = sum_j h[j] x[i-j], same length as x.
 
-    Block size scales with K, clamped so the per-block working set stays
-    VMEM-friendly (small chunks win on this backend; CLAUDE.md).
+    Block size scales with K, clamped to 2^18 points so the transforms
+    stay small and batched (the clamp's value on the card is an open
+    question).
     """
     k = int(h.shape[0])
     fft_size = min(max(_next_pow2(2 * k), 8192), 1 << 18)
@@ -85,7 +82,7 @@ def impulse_response(run_data: Callable[[jnp.ndarray], jnp.ndarray],
 
     run_data maps data [1, K] -> [1, K] (the filter's own scan path applied
     to a unit impulse). Doubles K until the trailing tail_window samples
-    fall below eps * peak (truncation error ~r^K, VERDICT.md item 2), or
+    fall below eps * peak (truncation error ~r^K), or
     K would reach max_len - in which case the FIR holds no advantage over
     running the scan directly and None is returned.
 

@@ -1,6 +1,6 @@
 """PV time/frequency remap kernels.
 
-TPU-native re-design of the reference's scatter-paint remaps
+JAX re-design of the reference's scatter-paint remaps
 (reference: src/flan/PV/PVModify.cpp:196-385). The reference walks adjacent
 input frame (or bin) pairs and paints every integer output cell in the mapped
 interval, synchronizing with mutexes. For monotonic maps (every stretch /
@@ -32,11 +32,9 @@ def _pair_lookup(map_1d: jnp.ndarray, xs: jnp.ndarray):
 
     Returns (idx, valid). map_1d must be non-decreasing ([F] float32).
 
-    method="sort": the default binary-search lowering measured 123 ms for
-    a vmapped [256 x 2049-in-2049] lookup on the v5e; the sort-based form
-    measured 65 ms (a compare-and-reduce came out the same, a blocked
-    coarse/fine counting search 4x worse - the data-dependent gathers
-    dominate). Monotone-map callers with host-known maps should
+    method="sort": chosen over the default binary-search lowering on the
+    previous accelerator; which lowering is faster on the card is an open
+    question. Monotone-map callers with host-known maps should
     precompute indices instead (see pipelines/streamed.py and the
     constant-factor repitch path).
     """
@@ -135,9 +133,8 @@ def modify_frequency_gather_const(mag: jnp.ndarray, freq: jnp.ndarray,
     static lane permutations, and the per-MF frequency remap collapses to
     factor * (clip(freq) + bin_width) - the reference's +1-bin offset
     (PVModify.cpp:263-268, 287-302), which the general path's cumsum
-    produces too. Measured on the v5e this replaces a ~176 ms/chunk
-    searchsorted+gather stage with ~2 ms of elementwise work
-    (fused repitch: 6.2x -> 428x realtime on 60 s stereo).
+    produces too. This replaces a per-chunk searchsorted + gather stage
+    with elementwise work.
     """
     b = mag.shape[-1]
     f32 = np.float32(factor)

@@ -1,12 +1,12 @@
 """Sample-rate conversion kernels.
 
-TPU-native replacements for the reference's two resampler dependencies
+JAX replacements for the reference's two resampler dependencies
 (SURVEY.md native-component checklist):
 
 * r8brain whole-buffer SRC (reference src/r8brain/CDSPResampler.h:46, used by
   Audio::resample, AudioConversions.cpp:14-30) -> rational polyphase
-  windowed-sinc resampling expressed as one XLA dilated/strided convolution,
-  which maps onto the MXU/VPU instead of scalar polyphase loops.
+  windowed-sinc resampling expressed as one matrix product per output
+  block instead of scalar polyphase loops.
 
 * WDL streaming variable-rate SRC (reference src/WDL/resample.cpp, used by
   repitch / doppler / wavetable) -> time-varying fractional-delay
@@ -64,7 +64,7 @@ def _polyphase_matrix(L: int, M: int, taps_per_phase: int, atten_db: float):
     filter); only taps s with (e - s) % L == 0 touch real input, giving
     y[n] = sum_j h[ph_p + L*j] * x[e//L - j] with p = n % L. Folding the
     phase structure into one [L, window] matrix turns each L-output block
-    into a single MXU matmul - XLA's dilated-conv lowering of the same
+    into a single matmul - XLA's dilated-conv lowering of the same
     filter runs ~3 orders of magnitude more MACs (it multiplies every
     output by all L*taps dense taps, zeros included).
 
@@ -114,8 +114,8 @@ def _rational_resample_jit(x, L: int, M: int, num_out: int,
     rows = xp[:, :(nb + nrows_extra) * M].reshape(c_cnt, nb + nrows_extra, M)
     parts = [rows[:, i:i + nb, :] for i in range(nrows_extra)]
     window = jnp.concatenate(parts, axis=-1)[..., :win]   # [C, nb, win]
-    # HIGHEST: DEFAULT TPU matmul precision truncates f32 operands to bf16
-    # (~40 dB SNR), defeating the 140 dB filter design; see ops/mxu_fft.py.
+    # HIGHEST: the reduced-precision default (TF32 on GPUs) would cap the
+    # output near 40 dB SNR, defeating the 140 dB filter design.
     y = jnp.einsum("cbw,pw->cbp", window, mat,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -136,7 +136,7 @@ def resample(x: jnp.ndarray, sr_in: float, sr_out: float,
     transition-band shape, not tap count). 48 would pass the one-pass
     golden, but the oversampled-waveshape ROUND TRIP (two passes,
     vol_waveshape golden) compounds to 38.7 dB there vs >=40 at 64.
-    The on-chip smoke gate (tools/tpu_smoke.py gate_resample) is
+    The numerics gate (flan_tpu/utils/gates.py gate_resample) is
     taps-independent at ~79 dB.
     """
     if sr_in == sr_out:

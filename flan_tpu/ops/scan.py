@@ -2,7 +2,8 @@
 
 The reference's per-sample IIR loops (filters AudioFilter.cpp:61-186,
 compressor peak detector AudioVolume.cpp:246-253, resonate PV.cpp:602) are
-strictly sequential on CPU. On TPU every one of them is an associative scan:
+strictly sequential on CPU. On the device every one of them is an
+associative scan:
 
 * first-order linear y[n] = a[n] y[n-1] + b[n]  -> affine-map composition
 * the compressor's max-smoother y[n] = max(m[n], a[n] y[n-1] + c[n])
@@ -11,7 +12,7 @@ strictly sequential on CPU. On TPU every one of them is an associative scan:
   affine composition
 
 All run in O(log n) depth via jax.lax.associative_scan, vectorized over
-channels/bins on the VPU.
+channels/bins.
 """
 from __future__ import annotations
 
@@ -21,19 +22,18 @@ import jax.numpy as jnp
 # Block length for the two-level (tiled) scans. Long scans are reshaped to
 # [..., nblocks, BLOCK] and solved as one within-block associative scan
 # plus a tiny cross-block scan: every intermediate shape is then uniform
-# and power-of-2 along the scanned axis, which this TPU backend compiles
-# and runs well (a single associative_scan over an arbitrary ~10^5+ length
-# generates deep odd/even slicing that it handles poorly).
+# and power-of-2 along the scanned axis (a single associative_scan over an
+# arbitrary ~10^5+ length generates deep odd/even slicing; whether the
+# card needs the tiling is an open question).
 BLOCK = 4096
 
 
 def _hillis_steele_scan(combine, identity, elems, axis: int = -1):
     """Inclusive scan via shift-and-combine doubling steps.
 
-    O(n log n) work but every memory op is a contiguous pad/slice -
-    jax.lax.associative_scan's odd/even recursion emits stride-2 lane
-    slices that this TPU backend cannot lower (UNIMPLEMENTED), so all
-    device scans route through this form.
+    O(n log n) work but every memory op is a contiguous pad/slice, where
+    jax.lax.associative_scan's odd/even recursion emits stride-2 slices.
+    All device scans route through this form.
     """
     leaves = jax.tree_util.tree_leaves(elems)
     n = leaves[0].shape[axis]
@@ -99,11 +99,10 @@ def _tiled_scan(combine, identity, elems, axis: int = -1):
 
 # The lane-parallel two-pass scan (below) folds time onto LANES contiguous
 # segments and scans sequentially with wide vector rows - ~2n work vs the
-# shift-combine form's ~n log(block). Measured on this backend it LOSES:
-# the required [.., LANES, seg] <-> [.., seg, LANES] transposes and scan
-# loop overhead cost more than the extra log-factor traffic (filter bench:
-# 18.8x realtime tiled vs 15x lanes vs 9.7x lanes+unroll). Kept available
-# behind USE_LANE_SCAN for other topologies.
+# shift-combine form's ~n log(block), at the price of
+# [.., LANES, seg] <-> [.., seg, LANES] transposes and scan loop overhead.
+# It lost to the tiled form on the previous accelerator; on the card it is
+# unmeasured, so it stays off behind USE_LANE_SCAN.
 USE_LANE_SCAN = False
 LANE_SCAN_MIN = 65536
 LANES = 8192
@@ -228,8 +227,8 @@ def matrix_affine_scanned_leaves(A: jnp.ndarray, b: jnp.ndarray):
     such that y[t] = AA[t] @ y[-1] + bb[t].
 
     Each matrix/vector component is its own scan leaf with the time axis
-    last (lane-major): scanning [..., T, 2, 2] directly leaves T on a
-    sublane-tiled axis, which this TPU backend handles poorly at large T.
+    last (contiguous): scanning [..., T, 2, 2] directly would leave T
+    strided behind the tiny matrix dims.
     The component identity scalars let the tiled two-level scan pad blocks.
     """
     k = A.shape[-1]

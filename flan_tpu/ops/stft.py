@@ -1,6 +1,6 @@
 """STFT phase-vocoder forward/inverse kernels.
 
-TPU-native re-design of the reference's sequential hop-loop phase vocoder
+JAX re-design of the reference's sequential hop-loop phase vocoder
 (reference: src/flan/Conversions/AudioPV.cpp:12-139, phase_vocoder.cpp:5-61).
 
 Key re-architecture decisions (SURVEY.md section 7):
@@ -75,34 +75,16 @@ def _wrap_radians(x):
 
 _TRI_BLOCK = 256
 
-# Route the hot (i)rFFTs through the matmul Cooley-Tukey form
-# (flan_tpu.ops.mxu_fft): XLA's native TPU FFT measured ~27 Gflops here,
-# two orders of magnitude under the MXU.
-# Round-3 on-chip A/B (tools/bench_headline_fft.py): the full stretch
-# pipeline runs 620.1x with XLA's native FFT vs 582.4x with the MXU
-# matmul FFT, and standalone chained rffts at dft 4096 measure 3.3 ms
-# (XLA) vs 15.7 ms (MXU) for 1152 transforms. Round 2's opposite
-# conclusion ("XLA FFT ~27 Gflops, matmul form is the fast path") was an
-# eager-dispatch measurement artifact (CLAUDE.md). The MXU form still
-# wins inside the overlap-save convolution at 2^17 blocks
-# (ops/fft_conv.py imports it directly) and is kept as the alternative.
-USE_MXU_FFT = False
-
-
 def rfft_mag_phase(x: jnp.ndarray, n: int):
     """(|X|, arg X) of the real FFT of x [..., m] padded to n."""
-    if USE_MXU_FFT:
-        from flan_tpu.ops.mxu_fft import rfft_mxu
-        re, im = rfft_mxu(x, n)
-    else:
-        spec = jnp.fft.rfft(x, n=n, axis=-1)
-        re, im = jnp.real(spec), jnp.imag(spec)
+    spec = jnp.fft.rfft(x, n=n, axis=-1)
+    re, im = jnp.real(spec), jnp.imag(spec)
     # forward-exact, gradient-safe polar extraction: sqrt/atan2 have NaN
     # grads at (0, 0) (all-zero frames); dead points route through
     # dummies (atan2(0, 1) = 0 = IEEE atan2(0, 0), so values are equal).
-    # atan2 is the polynomial form (ops/fastmath.py): XLA's TPU arctan2
-    # lowering measured ~25% of the whole stretch pipeline; the ~1.5e-7
-    # rad polynomial error is ~9e-6 Hz at the default analysis rate.
+    # atan2 is the polynomial form (ops/fastmath.py), which beat
+    # jnp.arctan2 end to end in the stretch pipeline; its ~1.5e-7 rad
+    # error is ~9e-6 Hz at the default analysis rate.
     from flan_tpu.ops.fastmath import atan2 as _fast_atan2
     energy = re * re + im * im
     dead = energy == 0.0
@@ -114,31 +96,32 @@ def rfft_mag_phase(x: jnp.ndarray, n: int):
     return mag, phase
 
 
-def irfft_polar(mag: jnp.ndarray, phase: jnp.ndarray, n: int,
-                out_len: int = 0):
+def irfft_polar(mag: jnp.ndarray, phase: jnp.ndarray, n: int):
     """Inverse real FFT of mag * exp(i phase) [..., n//2+1] -> [..., n].
 
-    out_len > 0 records caller intent only (the OLA synthesis keeps
-    window_size of dft_size): irfft_mxu documents trimming the dead
-    stage-2 outputs as a measured-slower no-op and always computes the
-    full transform - callers still slice.
-    """
+    The DC and (even n) Nyquist bins of a real signal's spectrum are
+    real, but the accumulated phase gives them imaginary parts. FFTW's
+    c2r (the reference's), numpy's and XLA's CPU FFT ignore those parts;
+    cuFFT's batched c2r does not (on an H100, a batch of 256 4096-point
+    transforms moved by up to 1.1e-3 with them, a single transform not
+    at all). Zeroing them gives every backend the reference's result and
+    leaves the CPU's output bit for bit unchanged."""
+    real_bins = np.zeros(n // 2 + 1, bool)
+    real_bins[0] = True
+    real_bins[-1] = n % 2 == 0
     re = mag * jnp.cos(phase)
-    im = mag * jnp.sin(phase)
-    if USE_MXU_FFT:
-        from flan_tpu.ops.mxu_fft import irfft_mxu
-        return irfft_mxu(re, im, n, out_len=out_len)
+    im = jnp.where(real_bins, 0.0, mag * jnp.sin(phase))
     return jnp.fft.irfft(jax.lax.complex(re, im), n=n, axis=-1)
 
 
 def cumsum_mod1_frames(inc: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive mod-1 cumsum along axis 1 of [C, F, B], MXU-formulated.
+    """Inclusive mod-1 cumsum along axis 1 of [C, F, B], as matmuls.
 
     The phase accumulator is the hot reduction of every inverse transform.
-    A log-depth scan moves the full array ~log2(F) times through HBM; here
-    the within-block prefix is one lower-triangular matmul (256-wide, on
-    the MXU) and blocks are chained with a tiny cross-block prefix, so the
-    array moves ~3x total. Values stay bounded by the block length, so
+    A log-depth scan moves the full array ~log2(F) times through device
+    memory; here the within-block prefix is one lower-triangular matmul
+    (256-wide) and blocks are chained with a tiny cross-block prefix, so
+    the array moves ~3x total. Values stay bounded by the block length, so
     float32 keeps phase error below 2^-24 * block cycles.
     """
     c, f, b = inc.shape
@@ -150,8 +133,8 @@ def cumsum_mod1_frames(inc: jnp.ndarray) -> jnp.ndarray:
     x = inc.reshape(c, nb, blk, b)
     tri = jnp.asarray(
         np.tril(np.ones((blk, blk), np.float32)))       # [g, f], f <= g
-    # HIGHEST: DEFAULT TPU matmul precision would truncate the f32 cycle
-    # increments to bf16 (~1e-3 cycle phase error); see ops/mxu_fft.py.
+    # HIGHEST: the reduced-precision default (TF32 on GPUs) would round the
+    # f32 cycle increments to ~1e-3 cycle phase error.
     within = jnp.einsum("gf,cnfb->cngb", tri, x,
                         preferred_element_type=jnp.float32,
                         precision=jax.lax.Precision.HIGHEST)
@@ -259,7 +242,7 @@ def pv_inverse(mag: jnp.ndarray, freq: jnp.ndarray, *,
         cycles = cumsum_mod1_frames(inc)
         cycles = jnp.mod(cycles + cycle0[:, None, :], 1.0)
         phase = cycles * (2.0 * jnp.pi)
-        frames = irfft_polar(m, phase, dft_size, out_len=wpad)[..., :wpad]
+        frames = irfft_polar(m, phase, dft_size)[..., :wpad]
         frames = frames * window[None, None, :]
         # overlap-add: r diagonal sums over hop-blocks
         blocks = frames.reshape(c, chunk, r, hop)

@@ -5,9 +5,9 @@ The reference's convolution is one giant single-process FFTW transform
 device mesh the natural decomposition is overlap-add across shards: each
 device convolves its local time slice with the (replicated) impulse
 response, and the L-1-sample tail that spills past the shard boundary is
-handed to the right neighbor over ICI with one non-cyclic ppermute — the
+handed to the right neighbor with one non-cyclic ppermute — the
 time-domain analog of the analysis-window halo in stft_sp. Inside each
-shard the MXU overlap-save core (ops/fft_conv.fft_convolve_full) does the
+shard the overlap-save core (ops/fft_conv.fft_convolve_full) does the
 work, so the single-chip fast path and the sharded path share one kernel.
 """
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 The unfused path (convert_to_PV -> stretch -> convert_to_audio)
 materializes phase-vocoder data that is overlap-factor x 2 larger than the
-audio: a 10-minute stereo 48 kHz file becomes ~15 GB of PV tensors - beyond
-one v5e's HBM (the reference materializes the same data in host RAM,
+audio: a 10-minute stereo 48 kHz file becomes ~15 GB of PV tensors (the
+materializing path peaks at 38 GB on an 80 GB H100; the reference
+materializes the same data in host RAM,
 PVBuffer.h:27). This wrapper plans the monotonic time map on the host and
 streams through the shared harness (pipelines/streamed.py): peak HBM is
 O(chunk) regardless of file length; FLOPs are identical to the unfused

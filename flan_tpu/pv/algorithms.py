@@ -1,6 +1,6 @@
 """PV selection / combination / generation / extras.
 
-TPU-native re-design of the reference PV algorithms
+JAX re-design of the reference PV algorithms
 (reference: src/flan/PV/PV.cpp). Scatter-with-max loops become jnp
 scatter-max or max-affine scans; per-frame magnitude sorts become batched
 argsorts. Bound onto PV in flan_tpu.pv.__init__.

@@ -1,6 +1,6 @@
 """PV salience / contours / prism (Salamon & Gomez melody machinery).
 
-TPU-native re-design of the reference melody extraction
+JAX re-design of the reference melody extraction
 (reference: src/flan/PV/PVInformation.cpp). The salience map runs on device
 with per-frame top-K peak batching and one scatter-add; contour tracking is
 greedy control flow over sparse peak lists (host, numpy); prism vectorizes
@@ -120,7 +120,7 @@ def get_salience(self, channel: int, min_frequency: float = 55.0,
     # only the center-bin weights into a (bin-extended) per-frame
     # histogram, then convolve along bins with the 21-tap spread kernel.
     # The naive [F, K, Nh, 21] scatter materializes index tensors whose
-    # tiny trailing dims tile-pad to ~17 GB on TPU at 60 s (OOM).
+    # tiny trailing dims tile-pad to ~17 GB at 60 s (OOM).
     width = sal_bins + 2 * bin_effect_dist
     contrib = alpha_pow[None, None, :] * i_m[..., None]    # [F, K, Nh]
     valid = (b_c >= 0) & (b_c < width - bin_effect_dist) \

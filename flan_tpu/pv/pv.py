@@ -1,6 +1,6 @@
 """PV: phase-vocoder algorithm surface.
 
-TPU-native re-design of the reference PV class
+JAX re-design of the reference PV class
 (reference: src/flan/PV/PV.h:27-490). PV is a stateless wrapper of PVBuffer;
 every method is pure and returns a new PV. The compute path is batched JAX
 ops over the [channels, frames, bins] mag/freq arrays (see flan_tpu.ops).
@@ -210,8 +210,8 @@ class PV(PVBuffer):
         fn = as_function2d(factor)
         if fn.is_constant and interp is interpolators.linear:
             # host-precomputed inverse bin map: static gathers instead of
-            # the searchsorted + data-dependent-gather path (measured
-            # ~90x cheaper on the v5e; see modify_frequency_gather_const)
+            # the searchsorted + data-dependent-gather path (see
+            # modify_frequency_gather_const)
             out_mag, out_freq = pv_modify.modify_frequency_gather_const(
                 self.mag, self.freq, float(fn.constant_value),
                 self.bin_width)

@@ -1,6 +1,6 @@
 """SPV: sliding-DFT phase vocoder (one spectral frame per audio sample).
 
-TPU-native re-design of the reference SPV type
+JAX re-design of the reference SPV type
 (reference: src/flan/SPV/SPVBuffer.h, SPV.cpp, Conversions/AudioSPV.cpp).
 The reference already discovered the prefix-sum form of the sliding DFT
 (AudioSPV.cpp:54-59); here the per-bin sequential sums become one cumsum
@@ -118,14 +118,14 @@ def _twiddle_table_np(nbins: int):
 
 def _cumsum_frames_tri(x: jnp.ndarray, block: int = 128,
                        precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """Inclusive cumsum along axis 1 of [C, T, B], two-level MXU form.
+    """Inclusive cumsum along axis 1 of [C, T, B], two-level matmul form.
 
     Within 128-frame blocks the prefix is one lower-triangular [128, 128]
-    matmul (a perfect MXU tile); blocks chain through a tiny exclusive
+    matmul; blocks chain through a tiny exclusive
     prefix of their totals. Per-sample matmul work is `block` MACs
     regardless of chunk size, so the streaming chunk can grow (fewer scan
     carries) without quadratic cumsum cost — the single-level form paid
-    `chunk` MACs/sample (measured 1.9x slower end-to-end at chunk 1024)."""
+    `chunk` MACs/sample."""
     c, t, b = x.shape
     if t <= block:
         tri = jnp.asarray(np.tril(np.ones((t, t), np.float32)))
@@ -144,11 +144,12 @@ def _cumsum_frames_tri(x: jnp.ndarray, block: int = 128,
     return (inner + offs[:, :, None, :]).reshape(c, t, b)
 
 
-# chunk/precision defaults from the round-3 on-chip sweep (tools/
-# sweep_spv.py): 256/HIGHEST = 134.9x, 1024/HIGHEST = 178.2x,
-# 1024/HIGH = 187.9x with identical 30.4 dB aligned round-trip SNR (the
-# algorithmic floor; the cumsum operands are bounded amplitudes, not
-# phase, so 3-pass bf16 loses nothing audible)
+# HIGH is TF32 on a GPU. The cumsum operands are bounded amplitudes, not
+# phase, and the aligned round-trip SNR sits at the transform's own floor
+# either way: 31.6 dB at HIGH vs 31.1 dB at HIGHEST, with the 30 s mono
+# 512-bin round trip at 284x vs 266x realtime (NVIDIA H100 80GB HBM3,
+# 700 W). The 1024-frame chunk is inherited; re-sweeping it on the card
+# is an open question.
 _SPV_CHUNK = 1024
 _SPV_PRECISION = jax.lax.Precision.HIGH
 
@@ -161,7 +162,7 @@ def _spv_forward_scan(x, *, nbins: int, sample_rate: float,
     """Streaming sliding-DFT forward: peak HBM O(chunk x bins), not O(N x B).
 
     The naive form materializes [C, N, B] complex contributions twice -
-    ~23 GB for 60 s mono at 513 bins (VERDICT.md round 1, item 4). Here one
+    ~23 GB for 60 s mono at 513 bins. Here one
     lax.scan carries only the running complex sum and the previous frame's
     phase; everything is kept in separate re/im float32 planes (large 1-D
     complex ops are shaky on this backend).
@@ -271,28 +272,10 @@ def _spv_forward_scan(x, *, nbins: int, sample_rate: float,
     return mags[:, :n], freqs[:, :n]
 
 
-def _use_fused(nbins: int) -> bool:
-    """Route through the fused Pallas kernels on TPU when the shape
-    qualifies (ops/spv_pallas.py): the scan forms pay ~10 intermediate
-    HBM planes per chunk, measured 110.7/85.5 ms fwd/inv for the bench
-    config vs one-kernel-per-tile fusion. The scan path remains the
-    reference semantics, the CPU path, and the differentiable path."""
-    from flan_tpu.ops.spv_pallas import fused_forward_supported
-    return (jax.default_backend() not in ("cpu",)
-            and fused_forward_supported(nbins))
-
-
 def spv_forward(x: jnp.ndarray, nbins: int, sample_rate: float,
                 chunk: int = _SPV_CHUNK,
-                cumsum_precision=_SPV_PRECISION, *,
-                use_pallas: bool | None = None):
+                cumsum_precision=_SPV_PRECISION):
     """Audio [C, N] -> (mag, freq) [C, N, nbins] via sliding DFT + PV."""
-    if use_pallas is None:
-        use_pallas = _use_fused(nbins)
-    if use_pallas:
-        from flan_tpu.ops.spv_pallas import spv_forward_fused
-        return spv_forward_fused(x, nbins=nbins,
-                                 sample_rate=float(sample_rate))
     return _spv_forward_scan(x, nbins=nbins, sample_rate=float(sample_rate),
                              chunk=chunk, cumsum_precision=cumsum_precision)
 
@@ -324,15 +307,10 @@ def _spv_inverse_scan(mag, freq, *, sample_rate: float,
     return outs.transpose(1, 0, 2).reshape(c, fpad)[:, :f]
 
 
-def spv_inverse(mag: jnp.ndarray, freq: jnp.ndarray, sample_rate: float,
-                *, use_pallas: bool | None = None) -> jnp.ndarray:
+def spv_inverse(mag: jnp.ndarray, freq: jnp.ndarray,
+                sample_rate: float) -> jnp.ndarray:
     """(mag, freq) [C, F, B] -> audio [C, F]: accumulate phase, then the
     alternating-sign real-part sum (reference AudioSPV.cpp:113-145).
     Streams over frame chunks carrying the mod-1 cycle offset, so transient
-    HBM stays O(chunk x bins)."""
-    if use_pallas is None:
-        use_pallas = _use_fused(int(mag.shape[-1]))
-    if use_pallas:
-        from flan_tpu.ops.spv_pallas import spv_inverse_fused
-        return spv_inverse_fused(mag, freq, sample_rate=float(sample_rate))
+    device memory stays O(chunk x bins)."""
     return _spv_inverse_scan(mag, freq, sample_rate=float(sample_rate))

@@ -1,6 +1,6 @@
 """SQPV: sliding constant-Q phase-vocoder buffer and algorithms.
 
-TPU-native port of the reference SQPVBuffer
+JAX port of the reference SQPVBuffer
 (reference: src/flan/SQPV/SQPVBuffer.h:14-79, SQPVBuffer.cpp:17-31,
 Utility/MP.h:9-33). The algorithm layer above the buffer is written but
 entirely commented out upstream (SQPV/SQPV.cpp:1,

@@ -11,18 +11,18 @@ per-sample recurrence
 then hann-windows spectrally (0.5*F_0 - 0.25*(F_-1 + F_+1)) and phase
 vocodes at analysis_rate == sample_rate.
 
-TPU-native formulation: the recurrence has |a| == 1, so each chunk of L
+Parallel formulation: the recurrence has |a| == 1, so each chunk of L
 frames is one modulated prefix sum,
 
     F[j] = a^(j+1) * ( F_prev + sum_{i<=j} a^(-i) u[i] ),   j in [0, L)
 
-with the inner cumsum as a lower-triangular MXU matmul and the a^(-i) /
+with the inner cumsum as a lower-triangular matmul and the a^(-i) /
 a^(j+1) tables host-precomputed in float64 (they depend only on the local
 index, so no table grows with signal length and only the per-chunk carry
 accumulates rounding). The comb operand stages once as B static shifted
-slices of the padded signal (O(n x bins) HBM - the same order as the
-transform's own output; per-chunk gathers of any index form measured 5x
-realtime, see the staging comment). The reference's implicit float->int
+slices of the padded signal (O(n x bins) device memory - the same order
+as the transform's own output; per-chunk gathers were slower where
+measured before). The reference's implicit float->int
 truncation of the half-period sample offsets (AudioSQPV.cpp:100-103:
 frame +- N_k/2.0f passed to an integer-argument lambda) is reproduced
 exactly by the padding + the per-chunk quirk mask.
@@ -37,8 +37,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# round-3 on-chip sweep (tools/sweep_spv.py, staged-slice forward):
-# chunk 256/HIGHEST = 112.3x, 1024/HIGHEST = 166.2x, 256/HIGH = 99.3x
+# frames per scan step, inherited from the previous accelerator's sweep;
+# re-sweeping on the card is an open question
 _CHUNK = 1024
 
 
@@ -55,25 +55,21 @@ def _cq_params(sample_rate: float, bins_per_octave: float,
 
 
 def _stage_comb(x, sample_rate: float, bins_per_octave: float,
-                bandwidth: Tuple[float, float], tile: int,
-                bpad: int = 0, quirk: bool = True, stack_axis: int = -1):
+                bandwidth: Tuple[float, float], tile: int):
     """Stage the comb operand u[c, t, b] = (fiddle*x[t+P_b] - x[t-M_b])/N_b
     for the whole padded timeline as B static shifted slices of the
-    zero-padded signal (plain memcpys, lane-major over bins; per-chunk
-    gathers of any index form measured 5x realtime — see module
-    docstring). The reference's toward-zero trunc quirk
+    zero-padded signal (plain memcpys, contiguous over bins; see the
+    module docstring). The reference's toward-zero trunc quirk
     (AudioSQPV.cpp:100-103) — one x[0] read per odd-period bin/side — is
     folded in as a host-indexed scatter (mode='drop' replicates the
     scan-window bound: positions beyond the padded timeline never fire).
 
-    Returns (u_re, u_im, w0, nbins, bpad) with the time axis padded to a
-    multiple of `tile` and the bin axis to `bpad` (>= nbins; default
-    nbins, i.e. no padding). Traced — call inside jit.
+    Returns (u_re, u_im, w0, nbins) with the time axis padded to a
+    multiple of `tile`. Traced — call inside jit.
     """
     c, n = x.shape
     q, nbins, freqs, periods = _cq_params(sample_rate, bins_per_octave,
                                           bandwidth)
-    bpad = max(bpad, nbins)
     # warmup: the reference starts each bin at floor(-N_k/2 - 1)
     # (AudioSQPV.cpp:98); u is exactly zero before the window slides in,
     # so one global start at the earliest bin is identical.
@@ -102,15 +98,11 @@ def _stage_comb(x, sample_rate: float, bins_per_octave: float,
         u_im_b = (fi * new_b) * scale
         # trunc quirk: the lone t = -M_b (plus side) / t = P_b (minus
         # side) sample per odd-period bin truncating -0.5 -> index 0
-        # reads x[0]. quirk=False leaves it to the caller (the fused
-        # kernel applies it as per-tile mask math): ANY op between the
-        # slices and the stack — a scatter on the stacked array, or
-        # per-slice scatters feeding a transposed stack — broke XLA's
-        # fusion of the slices into the concat buffer and materialized
-        # every slice as a separate 128x-padded HLO temp (254 x 259 MB,
-        # OOM at the 10 s bench). The bare slice->stack chain below is
-        # the form the scan program compiles in-place.
-        if quirk and periods[b] % 2 == 1:
+        # reads x[0]. It is applied per slice, before the stack: a
+        # scatter on the stacked array breaks XLA's fusion of the slices
+        # into the concat buffer and materializes every slice as its own
+        # temporary.
+        if periods[b] % 2 == 1:
             t_new = w0 - int(off_m_np[b])
             t_old = w0 + int(off_p_np[b])
             u_re_b = u_re_b.at[:, t_new].add(x0 * np.float32(fr * scale))
@@ -119,14 +111,9 @@ def _stage_comb(x, sample_rate: float, bins_per_octave: float,
                 u_re_b = u_re_b.at[:, t_old].add(x0 * np.float32(-scale))
         urs.append(u_re_b)
         uis.append(u_im_b)
-    zpad = [jnp.zeros((c, tpad), jnp.float32)] * (bpad - nbins)
-    # stack_axis 0 gives [Bp, C, tpad] with the TIME axis minor: concat
-    # operands keep their natural layout (a trailing-bin stack feeding a
-    # pallas operand made XLA materialize every [C, tpad, 1] slice as a
-    # 128x-padded HLO temp - 254 x 259 MB, OOM; see ops/sqpv_pallas.py)
-    u_re = jnp.stack(urs + zpad, axis=stack_axis)
-    u_im = jnp.stack(uis + zpad, axis=stack_axis)
-    return u_re, u_im, w0, nbins, bpad
+    u_re = jnp.stack(urs, axis=-1)
+    u_im = jnp.stack(uis, axis=-1)
+    return u_re, u_im, w0, nbins
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -141,16 +128,15 @@ def _sqpv_forward_scan(x, *, sample_rate: float, bins_per_octave: float,
     L = chunk
     q, nbins, freqs, periods = _cq_params(sample_rate, bins_per_octave,
                                           bandwidth)
-    u_re_full, u_im_full, w0, nbins, _ = _stage_comb(
+    u_re_full, u_im_full, w0, nbins = _stage_comb(
         x, sample_rate, bins_per_octave, bandwidth, tile=L)
     tpad = u_re_full.shape[1]
     nchunks = tpad // L
 
     # host tables (float64 -> float32): local-index twiddle powers.
     # LAYOUT: the three spectral-hann twiddle lines live on a LEADING
-    # axis [3, L, B] - a trailing [..., B, 3] put 3 in the 128-lane axis
-    # and ran every elementwise op at ~2% lane utilization (CLAUDE.md
-    # "keep the long axis lane-major"; measured 5x realtime before).
+    # axis [3, L, B]: a trailing [..., B, 3] would put the size-3 axis
+    # innermost, behind every elementwise op.
     jv = np.array([-1.0, 0.0, 1.0])
     theta = 2.0 * np.pi * (q + jv[:, None]) / periods[None, :]  # [3, B]
     i_loc = np.arange(L, dtype=np.float64)
@@ -164,7 +150,7 @@ def _sqpv_forward_scan(x, *, sample_rate: float, bins_per_octave: float,
     bin_freq = jnp.asarray(freqs, jnp.float32)
     expected = bin_freq / sample_rate * (2.0 * jnp.pi)
 
-    def cumsum_l(v):  # [C, L, B*3] inclusive cumsum over axis 1 on the MXU
+    def cumsum_l(v):  # [C, L, B*3] inclusive cumsum over axis 1 (matmul)
         return _cumsum_frames_tri(v, precision=cumsum_precision)
 
     def body(carry, t0):
@@ -219,37 +205,11 @@ def _sqpv_forward_scan(x, *, sample_rate: float, bins_per_octave: float,
     return mag, pitch, positive
 
 
-def _use_fused(x=None) -> bool:
-    """Route through the fused Pallas kernels (ops/sqpv_pallas.py) off
-    CPU; the scan form stays the CPU / differentiable path. Bins are
-    padded to 128 inside the fused path, so any geometry qualifies.
-
-    Traced inputs (an outer jax.jit around convert_to_SQPV) fall back to
-    the scan form: the fused forward's two-program staging/kernel split
-    exists to keep XLA's pallas-operand layout from propagating through
-    the staging concat (ops/sqpv_pallas._stage_fused), and jit-of-jit
-    inlining would collapse the split and resurrect the 65 GB padded
-    temps it avoids."""
-    if x is not None and isinstance(x, jax.core.Tracer):
-        return False
-    return jax.default_backend() not in ("cpu",)
-
-
 def sqpv_forward(x: jnp.ndarray, sample_rate: float,
                  bins_per_octave: float,
                  bandwidth: Tuple[float, float], chunk: int = _CHUNK,
-                 cumsum_precision=jax.lax.Precision.HIGHEST,
-                 use_pallas: bool = None):
+                 cumsum_precision=jax.lax.Precision.HIGHEST):
     """Audio [C, N] -> (mag, pitch, positive) each [C, N, B]."""
-    if use_pallas is None:
-        use_pallas = _use_fused(x)
-    if use_pallas:
-        from flan_tpu.ops.sqpv_pallas import sqpv_forward_fused
-        return sqpv_forward_fused(
-            x, sample_rate=float(sample_rate),
-            bins_per_octave=float(bins_per_octave),
-            bandwidth=(float(bandwidth[0]), float(bandwidth[1])),
-            precision=cumsum_precision)
     return _sqpv_forward_scan(
         x, sample_rate=float(sample_rate),
         bins_per_octave=float(bins_per_octave),
@@ -304,12 +264,6 @@ def sqpv_inverse(mag, pitch, positive, sample_rate: float,
     """(mag, pitch, positive) [C, F, B] -> audio [C, F]
     (reference AudioSQPV.cpp:128-165): per-bin phase accumulation of the
     pitch-decoded frequencies, then the twiddle-rotated real-part sum."""
-    if _use_fused():
-        from flan_tpu.ops.sqpv_pallas import sqpv_inverse_fused
-        return sqpv_inverse_fused(
-            mag, pitch, positive, sample_rate=float(sample_rate),
-            bins_per_octave=float(bins_per_octave),
-            bandwidth=(float(bandwidth[0]), float(bandwidth[1])))
     return _sqpv_inverse_scan(
         mag, pitch, positive, sample_rate=float(sample_rate),
         bins_per_octave=float(bins_per_octave),

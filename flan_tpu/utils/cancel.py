@@ -4,7 +4,7 @@ The reference threads an std::atomic<bool> canceller through every long
 algorithm and polls it between hops/frames
 (reference: src/flan/defines.h:49-62, e.g. Conversions/AudioPV.cpp:49).
 
-Design decision for the TPU build (documented per VERDICT round 2, item 9):
+Design decision for the compiled device path:
 a compiled XLA program is not cooperatively interruptible — once a jitted
 scan is dispatched it runs to completion, so a per-hop cancel point inside
 the fused pipelines has no analog (inserting host callbacks into the scan

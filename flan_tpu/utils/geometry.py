@@ -1,6 +1,6 @@
 """Geometry and color utilities for graphing.
 
-TPU-native port surface of the reference utility types
+JAX port surface of the reference utility types
 (reference: src/flan/Utility/vec2.h, Interval.h, Rect.h, View.h, Color.h).
 Python tuples/dataclasses replace the C++ vector types; HSV conversion is
 vectorized numpy for whole-image colorization.

@@ -1,11 +1,10 @@
 """Timer: wall-clock stopwatch + device-honest timing helper.
 
-TPU-native port of the reference Timer (reference: src/flan/Utility/Timer.h)
-plus the lesson this environment teaches: JAX dispatch is asynchronous and
-block_until_ready may not block through remote transports, so device timing
-must force a small host fetch (SURVEY.md section 5 suggests jax profiler
-traces; `time_jax` is the quick equivalent of the reference's manual
-"ms per call" helper, tests/flanTest.cpp:59-68).
+Port of the reference Timer (reference: src/flan/Utility/Timer.h). JAX
+dispatch is asynchronous, so device timing waits on the results with
+block_until_ready (SURVEY.md section 5 suggests jax profiler traces;
+`time_jax` is the quick equivalent of the reference's manual "ms per
+call" helper, tests/flanTest.cpp:59-68).
 """
 from __future__ import annotations
 
@@ -41,18 +40,13 @@ class Timer:
 
 
 def sync(tree) -> None:
-    """Force completion of device work, robust to remote transports."""
+    """Wait for every device array in `tree` to finish computing."""
     import jax
-    import jax.numpy as jnp
-    for leaf in jax.tree_util.tree_leaves(tree):
-        if hasattr(leaf, "block_until_ready"):
-            leaf.block_until_ready()
-            flat = jnp.ravel(leaf)
-            float(jnp.sum(flat[:: max(1, flat.shape[0] // 4)][:4]))
+    jax.block_until_ready(tree)
 
 
 def time_jax(fn: Callable, *args, reps: int = 3, warmup: int = 1) -> float:
-    """Best-of-reps wall time of fn(*args) with honest device barriers."""
+    """Best-of-reps wall time of fn(*args), waiting on the device."""
     for _ in range(warmup):
         sync(fn(*args))
     best = float("inf")

@@ -1,4 +1,4 @@
-"""Algorithm-layer parity vs the COMPILED reference (VERDICT r3 item 5).
+"""Algorithm-layer parity vs the COMPILED reference.
 
 Fixtures in tests/fixtures/reference/algo_* and sdft_* were generated by
 tools/reference_oracle/gen_algo_fixtures.cpp, which compiles the reference's
@@ -192,7 +192,7 @@ class TestSlidingDFT:
 
 
 # ===========================================================================
-# AudioFilter.cpp goldens (VERDICT r4 item 6): the 1,262-LoC filter family
+# AudioFilter.cpp goldens: the 1,262-LoC filter family
 # vs the COMPILED reference (previously analytic-response-only).
 # ===========================================================================
 

@@ -1,14 +1,13 @@
-"""Accuracy gates for the polynomial transcendentals (ops/fastmath.py).
+"""Accuracy gate for the polynomial atan2 (ops/fastmath.py).
 
-These bounds are what the phase-vocoder paths rely on: ~1.5e-7 rad of
-atan2 error is ~9e-6 Hz at the default analysis rate, and ~4e-7 of
-sincos error is below the f32 rounding already present in the phase
-accumulator. Reference outputs are float64 numpy.
+The bound is what the phase-vocoder paths rely on: ~1.5e-7 rad of
+atan2 error is ~9e-6 Hz at the default analysis rate. Reference outputs
+are float64 numpy.
 """
 import numpy as np
 import jax.numpy as jnp
 
-from flan_tpu.ops.fastmath import atan2, sincos_2pi
+from flan_tpu.ops.fastmath import atan2
 
 
 def test_atan2_matches_numpy():
@@ -22,16 +21,3 @@ def test_atan2_matches_numpy():
     got = np.asarray(atan2(jnp.asarray(y), jnp.asarray(x)))
     ref = np.arctan2(y.astype(np.float64), x.astype(np.float64))
     assert np.abs(got - ref).max() < 5e-7
-
-
-def test_sincos_2pi_matches_numpy():
-    rng = np.random.default_rng(1)
-    u = rng.uniform(-4.0, 4.0, 200000).astype(np.float32)
-    u[:100] = np.linspace(0.0, 1.0, 100, dtype=np.float32)  # exact quads
-    s, c = sincos_2pi(jnp.asarray(u))
-    tu = 2 * np.pi * u.astype(np.float64)
-    assert np.abs(np.asarray(s) - np.sin(tu)).max() < 8e-7
-    assert np.abs(np.asarray(c) - np.cos(tu)).max() < 8e-7
-    # unit circle invariant
-    r = np.asarray(s) ** 2 + np.asarray(c) ** 2
-    assert np.abs(r - 1.0).max() < 1e-6

@@ -99,8 +99,7 @@ def test_stretch_batch_convenience(mesh):
 
 
 def test_linear_recurrence_sp_matches_single(mesh):
-    """IIR boundary-state handoff (SURVEY.md section 5 / VERDICT.md round 1
-    missing item 2): sharded scalar recurrence equals the single-chip
+    """IIR boundary-state handoff (SURVEY.md section 5): sharded scalar recurrence equals the single-chip
     tiled scan."""
     from flan_tpu.ops.scan import linear_recurrence
     from flan_tpu.parallel.scan_sp import linear_recurrence_sp
@@ -149,7 +148,7 @@ def test_filter_1pole_sp_matches_core(mesh):
 
 
 def test_stretch_sp_streamed_matches_stretch_sp(mesh):
-    """The streamed-SP composition (VERDICT round 2 item 5) equals the
+    """The streamed-SP composition equals the
     materializing stretch_sp; tail drift is the chunked mod-1 phase
     accumulator's f32 rounding (same growth as stretch_sp itself vs the
     single-chip pipeline)."""
@@ -203,7 +202,7 @@ def test_stretch_sp_streamed_variable_factor(mesh):
                                np.asarray(y_ref[:, :m]), atol=5e-3)
 
 def test_repitch_sp_streamed_matches_single_chip(mesh):
-    """Streamed-SP repitch (VERDICT round 3 item 9) equals the single-chip
+    """Streamed-SP repitch equals the single-chip
     streamed repitch pipeline on every shard."""
     from flan_tpu.parallel.stft_sp import repitch_sp_streamed
     from flan_tpu.pipelines.streamed import pv_repitch_pipeline
@@ -241,7 +240,7 @@ def test_morph_sp_streamed_matches_single_chip(mesh):
 
 def test_convolve_sp_matches_single(mesh):
     """Time-domain halo-exchange convolution (parallel/conv_sp.py) vs the
-    single-chip MXU overlap-save core, including the final-tail handoff
+    single-chip overlap-save core, including the final-tail handoff
     (reference analog: AudioCombination.cpp:299-353)."""
     from flan_tpu.ops.fft_conv import fft_convolve_full
     from flan_tpu.parallel.conv_sp import convolve_sp

@@ -50,7 +50,7 @@ def test_fused_variable_factor():
 
 def test_repitch_pipeline_matches_unfused():
     """Fused streaming repitch == convert_to_PV >> repitch >>
-    convert_to_audio (VERDICT.md round 1, item 6)."""
+    convert_to_audio."""
     from flan_tpu.pipelines import pv_repitch_pipeline
     sr = 8000.0
     n = 2 * 8000

@@ -66,7 +66,7 @@ def test_prism_octave_up(melody_pv):
 
 def test_prism_batched_matches_scalar_reference(melody_pv):
     """The batched prism rewrite must reproduce the scalar loop
-    (VERDICT.md round 1, item 5) on non-overlapping contours."""
+    on non-overlapping contours."""
     from flan_tpu.pv.information import _prism_scalar_reference
 
     def octave(note, t, harmonic, base_freq, harmonic_mags):
@@ -105,7 +105,7 @@ def test_prism_tie_semantics_zero_mag_taps(melody_pv):
 
 
 def test_salience_adaptive_k_lossless_on_dense_polyphony():
-    """VERDICT round 2 item 8: the default (adaptive-K) salience equals
+    """The default (adaptive-K) salience equals
     an uncapped all-bins run on material whose per-frame peak count
     exceeds the old fixed cap of 64."""
     rng = np.random.default_rng(0)

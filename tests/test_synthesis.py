@@ -108,8 +108,8 @@ def test_granulate():
 
 
 def test_texture_mod_batched_matches_sequential():
-    """The batched independent-grain path equals grain-by-grain mixing
-    (VERDICT.md round 1, item 7)."""
+    """The batched independent-grain path equals grain-by-grain
+    mixing."""
     import jax.numpy as jnp
     from flan_tpu.audio import synthesis as S
     sr = 8000.0

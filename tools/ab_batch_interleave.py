@@ -1,11 +1,11 @@
 """A/B: fold clips as channels vs interleave their chunks across scan
-steps (VERDICT round 4 item 3 — the untested batch axis).
+steps.
 
 Hypothesis under test: the headline scan is latency-bound per step, and
 folding a second clip into the channel axis (bench_batch's fold-2,
-[4, n] per program) widens every per-step tensor — the round-4 sweep
-showed per-step cost rising superlinearly once the working set leaves
-VMEM. Interleaving instead keeps each step at the single-clip 2-channel
+[4, n] per program) widens every per-step tensor, and per-step cost may
+rise superlinearly once the working set outgrows on-chip memory.
+Interleaving instead keeps each step at the single-clip 2-channel
 working set and alternates steps between two clips with a rotated PAIR
 of carries (carry dependency distance 2): same total work, same number
 of dispatched programs, but per-step tensors stay at the 2-channel
@@ -37,19 +37,7 @@ from flan_tpu.ops.windows import hann_window
 
 
 def _sync(y):
-    y.block_until_ready()
-    float(jnp.sum(jnp.ravel(y)[::65536]))
-
-
-def floor_s():
-    tiny = jnp.zeros((8,), jnp.float32) + 1.0
-    tiny.block_until_ready()
-    f = float("inf")
-    for _ in range(5):
-        t0 = time.perf_counter()
-        _sync(tiny)
-        f = min(f, time.perf_counter() - t0)
-    return f
+    jax.block_until_ready(y)
 
 
 @functools.partial(
@@ -135,8 +123,7 @@ def _scan(xs, *, window_size, hop, dft_size, sample_rate, out_frames,
         from flan_tpu.ops.stft import cumsum_mod1_frames, irfft_polar
         inc = jnp.mod(s_freq / analysis_rate, 1.0)
         cycles = jnp.mod(cumsum_mod1_frames(inc) + cycle0[:, None, :], 1.0)
-        out_t = irfft_polar(s_mag, cycles * (2.0 * jnp.pi), dft_size,
-                            out_len=wpad)[..., :wpad]
+        out_t = irfft_polar(s_mag, cycles * (2.0 * jnp.pi), dft_size)[..., :wpad]
         out_t = out_t * inv_window[None, None, :]
         blocks = out_t.reshape(cc, chunk_out, r, hop)
         acc = jnp.zeros((cc, chunk_out + r, hop), jnp.float32)
@@ -247,7 +234,6 @@ def main():
         t0 = time.perf_counter()
         _sync(run(interleave))
         best = min(best, time.perf_counter() - t0)
-    best = max(best - floor_s(), best * 0.25)
     total_audio = seconds * k_clips
     print(json.dumps({
         "arm": arm, "seconds": seconds, "chunk_out": chunk_out,

@@ -48,19 +48,7 @@ def main():
     compiled = fj.lower(x).compile()
 
     def sync(y):
-        y.block_until_ready()
-        float(jnp.sum(y[..., ::65536]))
-
-    tiny = jnp.zeros((8,), jnp.float32) + 1.0
-    tiny.block_until_ready()
-
-    def floor_time():
-        f = float("inf")
-        for _ in range(5):
-            t0 = time.perf_counter()
-            sync(tiny)
-            f = min(f, time.perf_counter() - t0)
-        return f
+        jax.block_until_ready(y)
 
     sync(compiled(x))
     best = float("inf")
@@ -68,7 +56,6 @@ def main():
         t0 = time.perf_counter()
         sync(compiled(x))
         best = min(best, time.perf_counter() - t0)
-    best = max(best - floor_time(), best * 0.25)
     print(json.dumps({
         "chunk": chunk, "synth_split": split, "irfft_split": irfft_split,
         "seconds": seconds,

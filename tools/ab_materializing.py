@@ -1,14 +1,13 @@
 """A/B: streamed scan vs materializing (batched, scan-free) PV stretch.
 
-The headline ships the O(chunk)-HBM streamed scan because 600 s stereo
-materializes ~15 GB of PV planes. But the scan is latency-bound per step
-(0.12% MFU) while the materializing path is pure batched tensor work —
-giant FFT batches, the MXU-blocked phase cumsum, one remap gather — with
-no sequential carrier at all. At 150 s the planes fit HBM (~5.5 GB with
-the stretched output), so this measures how much the scan itself costs:
-if the materializing form wins, the 600 s headline should become a chain
-of materializing SEGMENTS with host-carried phase/OLA boundaries instead
-of a scan (segment size bounded by HBM, not VMEM).
+The headline ships the O(chunk)-memory streamed scan because 600 s stereo
+materializes ~15 GB of PV planes. The materializing path is pure batched
+tensor work — giant FFT batches, the matmul phase cumsum, one remap
+gather — with no sequential carrier at all, so this measures how much
+the scan itself costs: if the materializing form wins, the 600 s headline
+could become a chain of materializing SEGMENTS with host-carried
+phase/OLA boundaries instead of a scan (segment size bounded by device
+memory).
 
 Usage: python tools/ab_materializing.py streamed|materializing [SECONDS]
 Prints one JSON line. Subprocess-isolate per arm.
@@ -67,19 +66,7 @@ def main():
     ma = compiled.memory_analysis()
 
     def sync(y):
-        y.block_until_ready()
-        float(jnp.sum(y[..., ::65536]))
-
-    tiny = jnp.zeros((8,), jnp.float32) + 1.0
-    tiny.block_until_ready()
-
-    def floor_time():
-        f = float("inf")
-        for _ in range(5):
-            t0 = time.perf_counter()
-            sync(tiny)
-            f = min(f, time.perf_counter() - t0)
-        return f
+        jax.block_until_ready(y)
 
     sync(compiled(x))
     best = float("inf")
@@ -87,7 +74,6 @@ def main():
         t0 = time.perf_counter()
         sync(compiled(x))
         best = min(best, time.perf_counter() - t0)
-    best = max(best - floor_time(), best * 0.25)
     print(json.dumps({
         "arm": arm, "seconds": seconds,
         "ms": round(best * 1e3, 1),

@@ -1,11 +1,10 @@
-"""A/B the streamed-stretch step restructure leads (VERDICT r3 item 3).
+"""A/B the streamed-stretch step restructure leads.
 
 The "super-chunk" grouping of G chunks per scan step is arithmetically
 identical to chunk_out = G*chunk (the mod-1 cycle prefix is associative,
-so local-cumsum + exclusive-prefix rotation IS one contiguous cumsum),
-and chunk 512 already measured 384x vs 636x at 256 — the hypothesis
-that's actually testable is whether the VMEM working set, not the step
-count, sets that cliff. These arms halve the remap-side working set
+so local-cumsum + exclusive-prefix rotation IS one contiguous cumsum), so
+the testable question is whether the per-step working set, not the step
+count, sets the chunk-size optimum. These arms halve the remap-side working set
 (bf16 mag + bf16 frequency-deviation planes, phase accumulation stays
 f32) and/or swap the wblocks-slice framing restack for one static
 gather, then re-sweep chunk_out.
@@ -79,8 +78,7 @@ def main():
     compiled = fj.lower(x).compile()
 
     def sync(y):
-        y.block_until_ready()
-        float(jnp.sum(jnp.ravel(y)[::65536]))
+        jax.block_until_ready(y)
 
     sync(compiled(x))
     best = float("inf")
@@ -88,14 +86,6 @@ def main():
         t0 = time.perf_counter()
         sync(compiled(x))
         best = min(best, time.perf_counter() - t0)
-    tiny = jnp.zeros((8,), jnp.float32) + 1.0
-    tiny.block_until_ready()
-    floor = float("inf")
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sync(tiny)
-        floor = min(floor, time.perf_counter() - t0)
-    best = max(best - floor, best * 0.25)
     print(json.dumps({"arm": arm, "seconds": seconds,
                       "chunk_out": chunk_out, "channels": channels,
                       "ms": round(best * 1e3, 1),

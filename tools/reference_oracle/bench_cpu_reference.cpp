@@ -4,7 +4,7 @@
 // (PVModify.cpp:371-385), PV::convert_to_audio (AudioPV.cpp:86-139) —
 // single-threaded (build_cpu_bench.sh forces every FLAN execution policy
 // to std::execution::seq), on the same 10-minute stereo 48 kHz headline
-// config bench.py measures on the TPU.
+// config bench.py measures on the GPU.
 //
 // FFTW is not installed on this box; fft_helper_impl.cpp (scalar radix-2,
 // double twiddles) stands in. BASELINE.md documents the honesty

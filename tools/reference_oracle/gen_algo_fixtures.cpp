@@ -1,5 +1,5 @@
 // Algorithm-semantics golden generator: drives the reference's ACTUAL
-// compiled algorithm layer (VERDICT round 3 item 5) — not replays:
+// compiled algorithm layer — not replays:
 //   /root/reference/src/flan/PV/PVModify.cpp   stretch / modify_frequency /
 //                                              quad modify (MIMM policy) /
 //                                              repitch / modify_time
@@ -427,7 +427,7 @@ int main(int argc, char** argv) {
         d << 1 << " " << inv.get_num_frames() << "\n";
     }
 
-    // --- AudioFilter.cpp (VERDICT r4 item 6): TPT 1/2-pole cascades,
+    // --- AudioFilter.cpp: TPT 1/2-pole cascades,
     // shelves, multinotch, comb, Hilbert frequency shift — the 1,262-LoC
     // family previously verified only against analytic response curves.
     {
